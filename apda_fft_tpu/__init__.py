@@ -1,6 +1,6 @@
-"""apda_fft_tpu - TPU-native adaptive spectral peak detection framework.
+"""apda_fft_tpu - accelerator adaptive spectral peak detection framework.
 
-A ground-up JAX/XLA/Pallas rebuild of the capabilities of APDA-FFT
+A ground-up JAX/XLA rebuild of the capabilities of APDA-FFT
 ("Adaptive Peak Detection for FFT-based Structural Monitoring"): batched
 windowed radix-2 FFT plus the full adaptive peak-detection chain as one jitted
 XLA program per acquisition epoch, with the gateway's protocol / file / egress
@@ -81,17 +81,6 @@ from apda_fft_tpu.ops.peaks_resolution import ResolutionPeaks, resolution_peaks
 
 __version__ = "0.3.0"
 
-
-def __getattr__(name):
-    # Lazy: importing the Pallas kernel module pulls in
-    # jax.experimental.pallas, which CPU-only users never need (same
-    # convention as the lazy Pallas FFT backend in ops/fft.py).
-    if name == "analyze_window_lowlat":
-        from apda_fft_tpu.ops.latency_pallas import analyze_window_lowlat
-
-        return analyze_window_lowlat
-    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
-
 __all__ = [
     "EpochResult",
     "FDDResult",
@@ -114,7 +103,6 @@ __all__ = [
     "analyze_records",
     "analyze_stream",
     "analyze_welch",
-    "analyze_window_lowlat",
     "center_and_pad",
     "coherence",
     "coherence_with_phase",

@@ -1,8 +1,8 @@
-"""Command-line interface: batch-analyze sensor log files on TPU.
+"""Command-line interface: batch-analyze sensor log files on the accelerator.
 
 Usage:
     python -m apda_fft_tpu analyze FILE [FILE...] [--mode flexible|rigid|adaptive]
-                                   [--backend xla|matmul|pallas] [--refine]
+                                   [--backend xla|matmul] [--refine]
                                    [--taper none|hann|hamming|blackman] [--json]
     python -m apda_fft_tpu oracle-check FILE [FILE...]   # vs float64 oracle
     python -m apda_fft_tpu track FILE [FILE...] [--rel-drift R]  # modal drift
@@ -795,10 +795,8 @@ def cmd_doctor(args) -> int:
                        "loaded" if lib is not None else
                        "unavailable - NumPy fallbacks active (slower ingest)"))
 
-    cache_dir = compilecache.enabled_dir()
     checks.append(("compile_cache", True,
-                   cache_dir or "not enabled (opt-in: gateway "
-                                "compilation_cache_dir / enable_compilation_cache)"))
+                   compilecache.enabled_dir() or "not enabled"))
 
     # Numerics: N=256 magnitude spectrum vs numpy float64 on this device.
     rng = np.random.default_rng(0)
@@ -929,7 +927,7 @@ def main(argv=None) -> int:
     a = sub.add_parser("analyze", help="batch-analyze acquisition log files")
     a.add_argument("files", nargs="+")
     a.add_argument("--mode", default="flexible", choices=["flexible", "rigid", "adaptive"])
-    a.add_argument("--backend", default="matmul", choices=["xla", "matmul", "pallas"])
+    a.add_argument("--backend", default="matmul", choices=["xla", "matmul"])
     a.add_argument("--refine", action="store_true")
     a.add_argument("--taper", default="none",
                    choices=["none", "hann", "hamming", "blackman"])
@@ -1114,6 +1112,9 @@ def main(argv=None) -> int:
     ig.set_defaults(fn=cmd_integrate)
 
     args = ap.parse_args(argv)
+    from apda_fft_tpu.utils.compilecache import enable_compilation_cache
+
+    enable_compilation_cache()
     return args.fn(args)
 
 

@@ -6,7 +6,7 @@ Usage:
 
 Simulation mode spins up N synthetic sensors streaming two-mode acquisitions
 through the loopback transport, processes everything through the full state
-machine + TPU pipeline, and prints the history log - a smoke-drivable analog
+machine + epoch pipeline, and prints the history log - a smoke-drivable analog
 of the reference's production-only deployment.
 """
 
@@ -20,13 +20,16 @@ import tempfile
 import numpy as np
 
 
-def _simulate(n_sensors: int, workdir: str | None, analysis: str = "epoch") -> None:
+def simulation_service(workdir: str, analysis: str = "epoch",
+                       flexible: bool = True):
+    """``(service, transport)``: a started :class:`GatewayService` on a
+    :class:`LoopbackTransport`, configured in ``workdir`` with egress sinks
+    that log instead of uploading - the gateway ``--simulate`` runs."""
     from apda_fft_tpu.gateway.config import GatewayConfig
     from apda_fft_tpu.gateway.egress import FtpSink, HttpSink
     from apda_fft_tpu.gateway.service import GatewayService
-    from apda_fft_tpu.gateway.transport import LoopbackTransport, SensorSimulator
+    from apda_fft_tpu.gateway.transport import LoopbackTransport
 
-    workdir = workdir or tempfile.mkdtemp(prefix="apda_gw_")
     data_dir = os.path.join(workdir, "SHM_Data") + os.sep
     os.makedirs(data_dir, exist_ok=True)
     cfg_path = os.path.join(workdir, "gw_config.json")
@@ -40,7 +43,7 @@ def _simulate(n_sensors: int, workdir: str | None, analysis: str = "epoch") -> N
                     "device_file": data_dir + "devices.txt",
                     "config_file": os.path.join(workdir, "config.txt"),
                     "data_dir": data_dir,
-                    "is_flexibile_structure": True,
+                    "is_flexibile_structure": flexible,
                     "analysis": analysis,
                     "welch_window": 1024,
                 },
@@ -69,6 +72,14 @@ def _simulate(n_sensors: int, workdir: str | None, analysis: str = "epoch") -> N
         http_sink=NullHttp(""),
     )
     svc.start()
+    return svc, transport
+
+
+def _simulate(n_sensors: int, workdir: str | None, analysis: str = "epoch") -> None:
+    from apda_fft_tpu.gateway.transport import SensorSimulator
+
+    workdir = workdir or tempfile.mkdtemp(prefix="apda_gw_")
+    svc, transport = simulation_service(workdir, analysis)
 
     rng = np.random.default_rng(0)
     t = np.arange(4096) / 500.0
@@ -88,7 +99,7 @@ def _simulate(n_sensors: int, workdir: str | None, analysis: str = "epoch") -> N
 
     print(f"processed {n} packets from {n_sensors} sensors; workdir={workdir}")
     print("--- history.log ---")
-    print(open(config.logger_file).read())
+    print(open(svc.config.logger_file).read())
 
 
 def main(argv=None) -> None:

@@ -44,8 +44,9 @@ class GatewayConfig:
     config_file: str
     data_dir: str
     is_flexible_structure: bool = True
-    #: optional on-disk XLA compilation cache so gateway restarts don't
-    #: re-pay the 10-40 s first-compile per epoch shape
+    #: on-disk XLA compilation cache directory, so gateway restarts don't
+    #: re-pay the first compile per epoch shape ("" = the fixed default of
+    #: utils.compilecache; JAX_COMPILATION_CACHE_DIR overrides both)
     compilation_cache_dir: str = ""
     #: optional spectral-leakage taper for the analysis pipeline
     #: ("none" = reference-parity rectangular; "hann"/"hamming"/"blackman")

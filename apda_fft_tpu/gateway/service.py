@@ -1,6 +1,6 @@
 """Gateway orchestrator: packet dispatch, file lifecycle, analysis, egress.
 
-The TPU-native re-design of the reference's ``Gateway`` class
+The batched re-design of the reference's ``Gateway`` class
 (``GT_FFT_v5.py:34-864``).  The behavioral contract is preserved - packet
 grammar, file naming/format, sequence validation with inline markers, upload
 queues that retry at the sensor's next sync, cleanup rules, history log - but
@@ -168,11 +168,10 @@ class GatewayService:
     # -- lifecycle -----------------------------------------------------------
 
     def start(self) -> None:
-        if self.config.compilation_cache_dir:
-            from apda_fft_tpu.utils.compilecache import enable_compilation_cache
+        from apda_fft_tpu.utils.compilecache import enable_compilation_cache
 
-            path = enable_compilation_cache(self.config.compilation_cache_dir)
-            self.history(f"\t[XLA] persistent compilation cache at {path}\n")
+        path = enable_compilation_cache(self.config.compilation_cache_dir or None)
+        self.history(f"\t[XLA] persistent compilation cache at {path}\n")
         self.transport.start(self.history)
         self.history(f"--- Gateway Start: {self.clock()} ---\n\n")
         self.devices.reset()
@@ -711,7 +710,7 @@ class GatewayService:
     # -- analysis ------------------------------------------------------------
 
     def _analyze_files(self, batch: list[tuple[str, str]]) -> None:
-        """Run the TPU pipeline over completed acquisition files.
+        """Run the epoch pipeline over completed acquisition files.
 
         Files are bucketed by padded FFT length so each bucket is one XLA
         program over a ``[B, N]`` batch - the epoch-batch replacement for the
@@ -1059,7 +1058,7 @@ class GatewayService:
                 lengths, and every new length is a fresh XLA trace signature
                 for the CSD/correlation programs - a months-long gateway
                 would accumulate executables without bound (the jaxlib
-                accumulation lesson, docs/ROUND3.md).  Losing < 256 trailing
+                accumulation lesson).  Losing < 256 trailing
                 samples is statistically negligible for Welch/correlation
                 estimates.
                 """

@@ -64,7 +64,7 @@ def decode_samples(raw, first_value: float = 0.0) -> list[str]:
 def quantize_like_log(values: np.ndarray) -> np.ndarray:
     """Round-trip through the on-disk 6-decimal representation.
 
-    The gateway's TPU-direct path skips writing/parsing log files; this applies
+    The gateway's memory-fed path skips re-parsing log files; this applies
     the same 1e-6 quantization the format round-trip would, so spectra match
     the file-based path bit-for-bit.
     """

@@ -1,14 +1,16 @@
 """ctypes loader for the native data-loader kernels (csrc/apda_io.cc).
 
-Compiles the shared library on first use (g++ is in the image; pybind11 is
-not, hence ctypes) and caches it under ``csrc/build/``.  Every entry point
-has a NumPy fallback so the framework works without a toolchain; parity is
-enforced by tests/test_native.py.
+Compiles the shared library on first use (with g++, through ctypes - no
+pybind11) and caches it under ``csrc/build/``, named by a hash of the
+source, so a library built from any other source is never loaded.  Every
+entry point has a NumPy fallback so the framework works without a
+toolchain; parity is enforced by tests/test_native.py.
 """
 
 from __future__ import annotations
 
 import ctypes
+import hashlib
 import os
 import subprocess
 import threading
@@ -45,26 +47,38 @@ def _locate_build_dir() -> str:
 
 _SRC = _locate_source()
 _BUILD_DIR = _locate_build_dir()
-_LIB_PATH = os.path.join(_BUILD_DIR, "libapda_io.so")
+
+
+def _lib_path() -> str:
+    """The library built from the current source: ``libapda_io-<hash>.so``.
+
+    Keyed on the SHA-256 of the source, not on timestamps: a build left by
+    an older checkout, or a ``csrc/build/`` copied from elsewhere with fresh
+    mtimes, has another name and is rebuilt instead of loaded stale.
+    """
+    with open(_SRC, "rb") as fh:
+        digest = hashlib.sha256(fh.read()).hexdigest()[:16]
+    return os.path.join(_BUILD_DIR, f"libapda_io-{digest}.so")
+
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
 _load_failed = False
 
 
-def _build() -> None:
+def _build(lib_path: str) -> None:
     os.makedirs(_BUILD_DIR, exist_ok=True)
     # Build to a temp name + atomic rename: writing the .so in place would
     # truncate the inode a concurrently running process may have mapped
     # (executing pages of a truncated mapping segfaults that process).
-    tmp = _LIB_PATH + f".tmp.{os.getpid()}"
+    tmp = lib_path + f".tmp.{os.getpid()}"
     try:
         subprocess.run(
             ["g++", "-O3", "-shared", "-fPIC", "-o", tmp, _SRC],
             check=True,
             capture_output=True,
         )
-        os.replace(tmp, _LIB_PATH)
+        os.replace(tmp, lib_path)
     finally:
         if os.path.exists(tmp):
             os.unlink(tmp)
@@ -84,14 +98,10 @@ def load() -> ctypes.CDLL | None:
         if _lib is not None or _load_failed:
             return _lib
         try:
-            # Rebuild when the source is present and newer; a deployment
-            # shipping only the prebuilt .so (no csrc/) must still load it.
-            if not os.path.exists(_LIB_PATH) or (
-                os.path.exists(_SRC)
-                and os.path.getmtime(_LIB_PATH) < os.path.getmtime(_SRC)
-            ):
-                _build()
-            lib = ctypes.CDLL(_LIB_PATH)
+            lib_path = _lib_path()
+            if not os.path.exists(lib_path):
+                _build(lib_path)
+            lib = ctypes.CDLL(lib_path)
             lib.apda_decode_half.restype = ctypes.c_long
             lib.apda_decode_half.argtypes = [
                 ctypes.c_char_p, ctypes.c_long, ctypes.c_double,

@@ -1,4 +1,4 @@
-"""Operational modal analysis (FDD) on TPU - beyond-reference capability.
+"""Operational modal analysis (FDD) - beyond-reference capability.
 
 The reference analyzes every sensor channel in isolation: one file, one
 spectrum, one peak list (``GT_FFT_v5.py:620-679``).  Cross-sensor structure
@@ -21,15 +21,17 @@ standard output-only modal-identification method:
 3. the ``s2/s1`` ratio at a peak measures mode separation (a repeated or
    closely spaced mode keeps ``s2`` high).
 
-TPU-first design: the segment spectra of all sensors come from ONE
-batched matmul-FFT dispatch ([S, W, H] in one program); the CSD matrix is
-two MXU einsum contractions over the segment axis; and the per-frequency
-SVD is a *batched power iteration with one deflation* in all-real
-arithmetic ([H, S, S] x [H, S] einsum matvecs inside a ``lax.scan``) -
-G(f) is Hermitian PSD, so its singular triplets are its eigen triplets
-and power iteration on the complex matrix embedded as (re, im) pairs is
-exact.  No ``eigh``/SVD custom call (those lower to row-at-a-time host
-loops on TPU and break SPMD partitioning), no complex dtype on device.
+Design: the segment spectra of all sensors come from ONE batched
+matmul-FFT dispatch ([S, W, H] in one program); the CSD matrix is two
+einsum contractions over the segment axis; and the per-frequency SVD is a
+*batched power iteration with one deflation* in all-real arithmetic
+([H, S, S] x [H, S] einsum matvecs inside a ``lax.scan``) - G(f) is
+Hermitian PSD, so its singular triplets are its eigen triplets and power
+iteration on the complex matrix embedded as (re, im) pairs is exact.  No
+``eigh``/SVD custom call (it breaks SPMD partitioning, and was chosen
+against on the earlier chip; ROADMAP S5/D7 re-decide it on the GPU), no
+complex dtype on device.  Every contraction runs at ``Precision.HIGHEST``
+(full f32; a GPU would otherwise use TF32).
 
 Validated against ``numpy.linalg.eigh`` on the host-assembled complex CSD
 and against a synthetic multi-sensor modal model (known shapes recovered
@@ -56,8 +58,8 @@ from apda_fft_tpu.ops import fft as fft_ops
 
 #: Power-iteration steps for the per-frequency dominant eigenpair.  The
 #: iterate converges as (s2/s1)**t; at 60 steps even a 0.9 ratio (very
-#: closely spaced modes) is resolved to ~2e-3, and the whole [H, S] sweep
-#: is a few microseconds of MXU/VPU work at S <= 32.
+#: closely spaced modes) is resolved to ~2e-3; the whole [H, S] sweep is
+#: small batched matvecs at S <= 32.
 _POWER_ITERS = 60
 
 
@@ -163,21 +165,23 @@ def _csd_impl(records, scale, *, window, hop, taper, detrend):
     s = jnp.asarray(scale / w, re.dtype)
     # G[h, a, b] = scale * mean_w conj(X_a) X_b
     #   Re = (xr_a xr_b + xi_a xi_b),  Im = (xr_a xi_b - xi_a xr_b)
-    gr = (jnp.einsum("awh,bwh->hab", re, re)
-          + jnp.einsum("awh,bwh->hab", im, im)) * s
-    gi = (jnp.einsum("awh,bwh->hab", re, im)
-          - jnp.einsum("awh,bwh->hab", im, re)) * s
+    hp = jax.lax.Precision.HIGHEST  # full f32: no TF32 on a GPU
+    gr = (jnp.einsum("awh,bwh->hab", re, re, precision=hp)
+          + jnp.einsum("awh,bwh->hab", im, im, precision=hp)) * s
+    gi = (jnp.einsum("awh,bwh->hab", re, im, precision=hp)
+          - jnp.einsum("awh,bwh->hab", im, re, precision=hp)) * s
     # DC zeroed (library-wide convention; the detrend already removed it).
     return gr.at[0].set(0.0), gi.at[0].set(0.0)
 
 
 def _matvec(gr, gi, vr, vi):
     """Batched Hermitian matvec ``y = G v`` in (re, im) parts, [..., S]."""
-    yr = jnp.einsum("...ab,...b->...a", gr, vr) - jnp.einsum(
-        "...ab,...b->...a", gi, vi
+    hp = jax.lax.Precision.HIGHEST
+    yr = jnp.einsum("...ab,...b->...a", gr, vr, precision=hp) - jnp.einsum(
+        "...ab,...b->...a", gi, vi, precision=hp
     )
-    yi = jnp.einsum("...ab,...b->...a", gr, vi) + jnp.einsum(
-        "...ab,...b->...a", gi, vr
+    yi = jnp.einsum("...ab,...b->...a", gr, vi, precision=hp) + jnp.einsum(
+        "...ab,...b->...a", gi, vr, precision=hp
     )
     return yr, yi
 
@@ -272,7 +276,7 @@ def _band_kurtosis_impl(records, k_idx, n_bins, *, window):
     ``records [S, T]``, ``k_idx [M]`` peak bin indices, ``n_bins [M]``
     half-bandwidths in bins.  Non-overlapping boxcar segments are
     band-masked in the frequency domain and synthesized back with two
-    [H, window] matmuls (MXU; no complex dtype, no irfft custom call);
+    [H, window] matmuls (no complex dtype, no irfft custom call);
     kurtosis is computed over every segment sample.  Returns
     ``(kur [M, S], energy [M, S])``.
     """
@@ -294,9 +298,10 @@ def _band_kurtosis_impl(records, k_idx, n_bins, *, window):
     # half spectrum and DC is masked, so the factor 2 is exact.
     t = jnp.arange(window, dtype=re.dtype)
     ang = (2.0 * jnp.pi / n_fft) * k.astype(re.dtype)[:, None] * t[None, :]
+    hp = jax.lax.Precision.HIGHEST
     x = (
-        jnp.einsum("mswh,ht->mswt", mr, jnp.cos(ang))
-        - jnp.einsum("mswh,ht->mswt", mi, jnp.sin(ang))
+        jnp.einsum("mswh,ht->mswt", mr, jnp.cos(ang), precision=hp)
+        - jnp.einsum("mswh,ht->mswt", mi, jnp.sin(ang), precision=hp)
     ) * (2.0 / n_fft)
     xm = x - jnp.mean(x, axis=(-2, -1), keepdims=True)
     m2 = jnp.mean(xm * xm, axis=(-2, -1))  # [M, S]
@@ -488,7 +493,7 @@ def fdd(
     rounding, and the half-power damping estimate all follow the library's
     established conventions, ``utils/get_peak_prominence.py:149-226``) ->
     mode shapes gathered from the first singular vectors at the accepted
-    peaks.  See the module docstring for the method and the TPU mapping.
+    peaks.  See the module docstring for the method and its device mapping.
 
     ``k`` defaults to the flexible detector's 4 slots; raise it for
     structures with more active modes in band.  Needs at least 2 segments
@@ -509,7 +514,7 @@ def fdd(
     ``mesh`` (a ``jax.sharding.Mesh``) runs the per-bin power-iteration
     SVD SPMD with the FREQUENCY axis sharded over ``mesh_axis`` (default:
     the mesh's first axis) - each bin's eigenpair is independent, so the
-    heavy ``[H, S, S]`` stage scales linearly over ICI with no
+    heavy ``[H, S, S]`` stage scales linearly over devices with no
     collectives; the detector then runs with the SPMD-safe selection.
     Decisions are identical to the single-device run (mesh-parity is
     asserted in tests and the multichip dryrun).

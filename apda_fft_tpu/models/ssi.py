@@ -1,4 +1,4 @@
-"""Covariance-driven Stochastic Subspace Identification (SSI-COV) on TPU.
+"""Covariance-driven Stochastic Subspace Identification (SSI-COV).
 
 Beyond-reference capability, companion to :mod:`apda_fft_tpu.models.modal`
 (FDD).  The reference analyzes each channel's spectrum in isolation
@@ -18,21 +18,20 @@ sequence, giving
   orders, with physical modes identified as poles that stabilize in
   (frequency, damping, shape) across orders while noise poles wander.
 
-TPU-first split of the work:
+Split of the work:
 
 * the data-heavy part — output correlation blocks ``R_l = E[y_{t+l} y_t^T]``
-  over ``L = 2i`` lags — runs on device as a ``lax.scan`` of MXU
+  over ``L = 2i`` lags — runs on device as a ``lax.scan`` of
   ``[S, T']·[T', S]`` contractions at ``precision=HIGHEST``
   (:func:`correlation_blocks`); for T = minutes of multi-sensor data this
   is the only O(T) stage, and it is one compiled program;
 * the small dense linear algebra — SVD of the ``[i·S, i·S]`` block-Hankel
   matrix, per-order shift-invariance least squares, and the ``[n, n]``
   non-symmetric eigendecompositions — runs host-side in float64 via
-  numpy.  These matrices are tiny (i·S ≈ 100-400) and non-symmetric
-  ``eig`` has no TPU-native lowering (it would fall back to a row-at-a-time
-  host loop anyway); putting them on the host keeps the device program
-  collective-free and the numerics in f64 where the pole arithmetic
-  (``log`` of eigenvalues near the unit circle) actually needs it.
+  numpy.  These matrices are tiny (i·S ≈ 100-400); putting them on the
+  host keeps the device program collective-free and the numerics in f64
+  where the pole arithmetic (``log`` of eigenvalues near the unit circle)
+  actually needs it (ROADMAP D7 re-decides this on the GPU).
 
 Validated in ``tests/test_ssi.py`` against synthetic state-space systems
 with known (frequency, damping, shape) ground truth, against a numpy f64
@@ -166,10 +165,11 @@ def correlation_blocks(records, n_lags: int, *, detrend: str = "mean",
     object subspace identification expects), normalized by ``1/T0``, with
     per-channel mean removal by default (``detrend="none"`` to skip).
 
-    Device side of SSI: a ``lax.scan`` over lags of one MXU
+    Device side of SSI: a ``lax.scan`` over lags of one
     ``[S, T0]·[T0, S]`` contraction each, ``precision=HIGHEST`` (the
-    correlation estimates carry the identification accuracy; default bf16
-    matmul would cost ~3 significant digits).  Returns host float64.
+    correlation estimates carry the identification accuracy; a default
+    reduced-precision matmul - TF32 on a GPU - would cost ~3 significant
+    digits).  Returns host float64.
     """
     records = jnp.asarray(records, dtype)
     if records.ndim != 2:

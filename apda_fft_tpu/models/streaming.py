@@ -38,8 +38,7 @@ def frame_records(records: jnp.ndarray, window: int, hop: int) -> jnp.ndarray:
     w = (t - window) // hop + 1
     if hop == window:
         # Non-overlapping framing is a pure reshape (after trimming any
-        # ragged tail) - no gather.  TPU gathers are expensive; measured on
-        # cfg4 (64ch x 16win, N=8192) the reshape is +34% end to end.
+        # ragged tail) - no gather.
         trimmed = records[..., : w * window]
         return trimmed.reshape(*records.shape[:-1], w, window)
     if w <= 256:
@@ -414,8 +413,8 @@ def cross_psd(
     ``x``/``y`` are ``[..., T]`` records with matching shapes.
 
     Returns ``pxy`` as a HOST numpy complex array (not jittable: the
-    device math is kept all-real because this TPU backend lacks complex
-    arithmetic ops, and the complex view is assembled on the host).
+    device math is kept all-real, and the complex view is assembled on the
+    host).
     """
     _, _, pr, pi, n_fft = _cross_moments(
         x, y, fs, window, hop, taper, detrend, dtype, want_autos=False
@@ -523,7 +522,7 @@ def analyze_epochs_pipelined(
       analyze: the epoch function (default :func:`analyze_epoch`); pass
         e.g. ``functools.partial(analyze_epoch_sharded, mesh=mesh)`` to
         pipeline mesh-sharded epochs.
-      **kwargs: forwarded to ``analyze`` (backend, k, refine, lowlat, ...).
+      **kwargs: forwarded to ``analyze`` (backend, k, refine, ...).
         ``max_candidates`` is managed here and rejected.
     """
     # Validate eagerly (this is a plain function returning a generator, so

@@ -16,7 +16,7 @@ Matching is greedy nearest-frequency within a relative tolerance (modal
 frequencies move slowly per epoch; a 2% default window comfortably covers
 environmental drift while separating distinct modes resolved by the
 detectors' own separation rules).  Host-side NumPy by design: k <= 5 peaks
-per epoch is not TPU work.
+per epoch is not accelerator work.
 """
 
 from __future__ import annotations

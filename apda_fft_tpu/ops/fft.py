@@ -1,4 +1,4 @@
-"""TPU-native spectral front end: centering, padding, and batched FFT backends.
+"""Spectral front end: centering, padding, and batched FFT backends.
 
 Behavioral contract (reference ``metrics/fft_iterativa.py:74-88``):
 
@@ -9,15 +9,16 @@ Behavioral contract (reference ``metrics/fft_iterativa.py:74-88``):
 
 The reference implements step 3 as an in-place, sequential, twiddle-accumulating
 radix-2 loop (``metrics/fft_iterativa.py:38-70``, ~7 ms at N=4096 on one CPU
-core).  On TPU we provide two mathematically equivalent backends:
+core).  Here there are two mathematically equivalent batched backends:
 
-* ``backend="xla"`` - ``jnp.fft.fft`` / ``jnp.fft.rfft`` lowered to XLA's FFT.
+* ``backend="xla"`` - ``jnp.fft.fft`` / ``jnp.fft.rfft`` lowered to XLA's FFT
+  (cuFFT on a GPU).
 * ``backend="matmul"`` - a Bailey four-step factorization N = N1*N2 expressed
   as two batched complex matrix products against precomputed DFT matrices with
-  an elementwise twiddle in between.  All FLOPs land on the MXU, making the
-  batch dimension essentially free; twiddle/DFT tables are computed in float64
-  at trace time and stored in the compute dtype (better accuracy than the
-  reference's sequentially accumulated ``w *= w_m``).
+  an elementwise twiddle in between (cuBLAS GEMMs on a GPU).  Twiddle/DFT
+  tables are computed in float64 at trace time and stored in the compute
+  dtype (better accuracy than the reference's sequentially accumulated
+  ``w *= w_m``).
 
 Both return spectra matching ``numpy.fft`` to float32 roundoff (normwise
 relative error ~1e-7 .. 1e-6; see ``tests/test_fft.py``).
@@ -33,7 +34,8 @@ import jax.numpy as jnp
 
 from apda_fft_tpu.ops.stats import median_lastaxis
 
-#: N at or below which a single DFT matrix product beats the four-step split.
+#: N at or below which a single DFT matrix product replaces the four-step
+#: split.  Chosen on the earlier chip; not re-tuned for the GPU (ROADMAP S3).
 _DIRECT_DFT_MAX = 512
 
 
@@ -166,7 +168,7 @@ def split_pow2(n: int) -> tuple[int, int]:
 
 
 # ---------------------------------------------------------------------------
-# Four-step (matmul) FFT - real input, MXU friendly
+# Four-step (matmul) FFT - real input, batched GEMMs
 # ---------------------------------------------------------------------------
 
 
@@ -183,11 +185,7 @@ def fft_matmul_real(
     ``half=True`` returns only the first N/2 bins (what the detectors
     consume): since k < N/2 iff k2 < N2/2, slicing the step-3 DFT tables to
     their first N2/2 columns halves that matmul while producing the same dot
-    products per kept bin up to GEMM reduction-order roundoff (measured
-    <=3e-7 relative, and 0.552 ms vs 0.702 ms for the B=2048/N=4096
-    magnitude front end on TPU v5e).  A Hermitian-symmetric
-    step 1 was also tried and measured slower (0.592 ms): the odd row count
-    underutilizes the MXU tile.
+    products per kept bin up to GEMM reduction-order roundoff.
     """
     n = x.shape[-1]
     if not is_pow2(n):
@@ -216,17 +214,13 @@ def _direct_dft_real(x: jnp.ndarray, n_out: int, precision):
 
 
 def split_lanes(n: int) -> tuple[int, int]:
-    """Factor ``n = n1*n2`` with the lane (minor) factor ``n1 >= 128``.
+    """Factor ``n = n1*n2`` with the minor factor ``n1 >= 128``.
 
     The four-step below views ``x`` as ``[..., n2, n1]`` (a free reshape) so
-    every intermediate keeps ``n1`` on the lane dimension.  TPU f32 tiles are
-    (8, 128): a minor dim below 128 leaves lanes idle in every matmul and
-    elementwise op, which is exactly what made the sqrt(N)-balanced split
-    slower for N <= 8192 (measured on TPU v5e, B*N = 8M: 1.23x faster at
-    N=1024, 1.21x at 2048, 1.13x at 4096, 1.27x at 8192, parity at >= 16384
-    where the balanced split is already lane-full - docs/DESIGN.md "Lane-full
-    four-step").  Above 16384 this returns the balanced split: growing n1
-    further doubles step-1 MACs for no lane benefit.
+    every intermediate keeps ``n1`` as the minor (contiguous) dimension.  The
+    floor of 128 on ``n1`` was chosen for the earlier chip's 128-wide vector
+    tiles and has not been re-tuned for the GPU (ROADMAP S3).  Above 16384
+    this returns the balanced split: growing n1 further doubles step-1 MACs.
     """
     log = n.bit_length() - 1
     l1 = max(7, (log + 1) // 2)
@@ -243,9 +237,9 @@ def _fourstep_pretranspose(x: jnp.ndarray, n_out: int, precision):
                           sum_m2 a[..., m2, m1] W_n2^{m2*k2} ]
 
     where ``a = x.reshape(..., n2, n1)`` is a free view.  Both contractions
-    run in MXU-natural layout (inner: m2 on the sublane dim; outer: m1 on
-    the lane dim with K = n1 >= 128), the twiddle is elementwise in the
-    produced layout, and the cos/sin tables of the outer DFT are stacked
+    run without a transpose of the input (inner: over m2, the major dim;
+    outer: over m1, the minor dim with K = n1 >= 128), the twiddle is
+    elementwise in the produced layout, and the cos/sin tables of the outer DFT are stacked
     into one ``[n1, 2*k1_out]`` operand so step 3 is two matmuls, not four.
     ``k < n_out  <=>  k1 < n_out/n2`` (k1 is the slow output digit).
 
@@ -266,7 +260,7 @@ def _fourstep_pretranspose(x: jnp.ndarray, n_out: int, precision):
     c1s1 = jnp.asarray(np.concatenate([c1, s1], axis=1))
 
     a = x.reshape(*x.shape[:-1], n2, n1)  # a[..., m2, m1]
-    # Step 1: DFT over m2 (real input -> two real matmuls, m2 on sublanes).
+    # Step 1: DFT over m2 (real input -> two real matmuls).
     br = jnp.einsum("km,...mn->...kn", c2, a, precision=precision)
     bi = jnp.einsum("km,...mn->...kn", s2, a, precision=precision)
     # Step 2: twiddle W_N^{k2*m1}.
@@ -297,7 +291,7 @@ def rfft_packed_matmul(
     vs :func:`fft_matmul_real` ``half=True`` this cuts step-3 matmul MACs 2x
     (transform length halved; all N/2 bins of Z are needed so there is no
     half-output slack left) and halves every post-step-1 intermediate, at the
-    cost of a handful of elementwise lane ops (two stride-2 deinterleaves, a
+    cost of a handful of elementwise ops (two stride-2 deinterleaves, a
     flip+roll reversal, the untwist FMA chain).  Total MACs per window:
     2*N*n1 + 4*(N/2)*n2 vs 2*N*(n1+n2).
 
@@ -361,7 +355,7 @@ def rfft_packed_matmul(
 # Backend dispatch
 # ---------------------------------------------------------------------------
 
-BACKENDS = ("xla", "matmul", "pallas")
+BACKENDS = ("xla", "matmul")
 
 
 def full_spectrum(x: jnp.ndarray, backend: str = "xla") -> jnp.ndarray:
@@ -373,7 +367,7 @@ def full_spectrum(x: jnp.ndarray, backend: str = "xla") -> jnp.ndarray:
     """
     if backend == "xla":
         spec = jnp.fft.fft(x.astype(_complex_for(x.dtype)))
-    elif backend in ("matmul", "pallas"):
+    elif backend == "matmul":
         re, im = fft_matmul_real(x)
         spec = jax.lax.complex(re, im)
     else:
@@ -381,12 +375,11 @@ def full_spectrum(x: jnp.ndarray, backend: str = "xla") -> jnp.ndarray:
     return spec.at[..., 0].set(0)
 
 
-#: Spectrum precision modes: "highest" (default, f32 MXU passes, ~1e-7
-#: normwise error - the 1e-6 contract) and "fast" (3-pass bf16 einsums,
-#: measured 0.486 vs 0.55 ms for the B=2048/N=4096 magnitude front end at
-#: 1.8e-5 relative error on TPU v5e - docs/DESIGN.md).  "fast" is matmul-
-#: backend only and opts OUT of the accuracy contract and of bit-matched
-#: peak decisions near thresholds; on CPU the two modes coincide.
+#: Spectrum precision modes: "highest" (default, full-f32 matmuls, the 1e-6
+#: normwise contract) and "fast" (``Precision.HIGH``: TF32 tensor-core
+#: matmuls on a GPU).  "fast" is matmul-backend only and opts OUT of the
+#: accuracy contract and of bit-matched peak decisions near thresholds; its
+#: measured error on the GPU is in PERF.md.  On CPU the two modes coincide.
 PRECISIONS = ("highest", "fast")
 
 
@@ -408,7 +401,7 @@ def halfspec_magnitudes(
     This is what the peak detectors consume (``utils/get_peak_prominence.py:159``,
     ``utils/get_peak_resolution.py:84``): magnitudes of the positive-frequency
     half, with bin 0 forced to zero.  ``precision="fast"`` (matmul backend
-    only) trades the 1e-6 accuracy contract for ~12% front-end speed - see
+    only) trades the 1e-6 accuracy contract for speed - see
     :data:`PRECISIONS`.
     """
     n = x.shape[-1]
@@ -416,7 +409,7 @@ def halfspec_magnitudes(
     if precision == "fast" and backend != "matmul":
         raise ValueError(
             'precision="fast" applies to the matmul backend only '
-            f"(got backend={backend!r}); xla/pallas have no bf16 pass to trade"
+            f"(got backend={backend!r}); xla has no reduced-precision pass"
         )
     if backend == "xla":
         spec = jnp.fft.rfft(x)[..., : n // 2]
@@ -432,10 +425,6 @@ def halfspec_magnitudes(
             dr, di = pre
             dm = jnp.sqrt(dr**2 + di**2)
             mags = jnp.swapaxes(dm, -1, -2).reshape(*x.shape[:-1], n // 2)
-    elif backend == "pallas":
-        from apda_fft_tpu.ops.fft_pallas import halfspec_magnitudes_pallas
-
-        return halfspec_magnitudes_pallas(x)
     else:
         raise ValueError(f"unknown FFT backend {backend!r}; expected one of {BACKENDS}")
     return mags.at[..., 0].set(0)

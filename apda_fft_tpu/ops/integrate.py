@@ -7,8 +7,8 @@ server side entirely (its L4 workflow stops at spectra + peaks,
 (offset-, drift- and noise-contaminated) accelerometer signal diverges;
 the field standard is omega-arithmetic in the frequency domain with a
 high-pass cut: ``V(w) = A(w) / (iw)``, ``D(w) = -A(w) / w^2``, low bins
-removed.  One rfft -> scale -> irfft per record, batched; TPU evaluates
-it as one jitted XLA FFT program.
+removed.  One rfft -> scale -> irfft per record, batched, as one jitted
+XLA FFT program.
 
 Two leakage defenses, both validated against a float64 oracle on
 worst-case half-bin off-grid tones (tests/test_integrate.py):

@@ -121,13 +121,12 @@ def _sparse_tables(mags: jnp.ndarray) -> tuple[jnp.ndarray, jnp.ndarray]:
     hold clipped windows padded with the op identity, so queries must stay in
     range (they do).
 
-    Performance note (measured on TPU v5e, B=2048/H=2048/M=32): despite the
-    ~10x op-count reduction, this path is ~30x SLOWER than the masked
-    reductions on TPU - the per-level scalar gathers ``st[lvl, pos]`` and the
-    [B, levels, H] tables in HBM are exactly what the VPU hates; the masked
-    version is streaming selects/reductions that XLA fuses densely.  It is
-    kept as an exact alternative (useful on CPU and as a cross-check), with
-    scan_impl defaulting to "masked".
+    Performance note: despite the ~10x op-count reduction, this path was
+    much slower than the masked reductions on the earlier chip - per-level
+    scalar gathers ``st[lvl, pos]`` and [B, levels, H] tables in device
+    memory, against streaming selects/reductions that XLA fuses densely.
+    Not measured on the GPU.  It is kept as an exact alternative (useful on
+    CPU and as a cross-check), with scan_impl defaulting to "masked".
     """
     h = mags.shape[-1]
     levels = max(h.bit_length() - 1, 1)
@@ -273,9 +272,8 @@ def prominence_select(mags: jnp.ndarray, max_candidates: int, selection: str = "
     score = jnp.where(cand_mask, _round_decimals(mags, 4), -jnp.inf)
     if selection == "auto":
         # Iterative argmax costs ~4*eff vector ops over H; top_k lowers to a
-        # full bitonic sort (~log^2 H passes).  Measured on TPU v5e
-        # (B=2048, H=2048, full pipeline): argmax 1.66 ms vs top_k 2.54 ms at
-        # M=8; a wash at M=32 (4.40 vs 4.29); top_k wins 2x+ by M=64.
+        # sort.  The crossover at 16 was measured on the earlier chip and
+        # has not been re-tuned for the GPU (ROADMAP S4).
         selection = "argmax" if eff <= 16 else "topk"
     elif selection == "auto_spmd":
         # Same crossover, but never top_k: lax.top_k is a custom call with no
@@ -289,9 +287,8 @@ def prominence_select(mags: jnp.ndarray, max_candidates: int, selection: str = "
         # under SPMD (no sort/top_k custom call).  The per-slot raw magnitude
         # and candidacy are extracted IN the rounds, reusing each round's
         # one-hot mask: a post-hoc ``jnp.take(mags, cid)`` lowers to a
-        # scalarized gather under vmap - measured 0.86 -> 0.35 ms for the
-        # whole selection stage at B=2048/H=2048/M=12 on TPU v5e
-        # (docs/DESIGN.md "Gather-free candidate extraction").  ``score``
+        # scalarized gather under vmap (docs/DESIGN.md "Gather-free
+        # candidate extraction").  ``score``
         # is -inf exactly on non-candidates, so ``max(work) > -inf`` is the
         # candidacy test; empty slots resolve to j=0 whose mags value is the
         # zeroed DC bin - identical to the take-based path (bit-checked in

@@ -1,4 +1,4 @@
-"""Anti-aliased integer decimation on TPU - mixed-ODR sensor fusion.
+"""Anti-aliased integer decimation - mixed-ODR sensor fusion.
 
 Deployed arrays mix output data rates: a footbridge deck node at 250 Hz
 next to a pylon node at 62.5 Hz (the ODR enum of the wire protocol,
@@ -9,9 +9,9 @@ never had to face.  This module brings a faster channel down to a slower
 channel's rate without aliasing its out-of-band content into the shared
 band.
 
-TPU-first design: the polyphase FIR decimator is ONE
+Design: the polyphase FIR decimator is ONE
 ``lax.conv_general_dilated`` with ``window_strides=q`` - XLA lowers the
-strided 1-D convolution onto the MXU, and the whole [S, T] batch runs in
+strided 1-D convolution to one library call, and the whole [S, T] batch runs in
 a single fused program.  The windowed-sinc taps are designed host-side in
 float64 (tiny, shape-static) and baked into the compiled program as a
 constant.  Semantics match ``scipy.signal.resample_poly(x, 1, q,
@@ -111,9 +111,9 @@ def _decimate_impl(x, taps, *, q: int, half: int, n_out: int):
         window_strides=(q,),
         padding=[(half, half + (q - 1))],
         dimension_numbers=("NCW", "OIW", "NCW"),
-        # Library rule (docs/DESIGN.md): f32 matmuls/convs default to bf16
-        # passes on TPU; the anti-aliasing filter carries the alias-floor
-        # contract, so force full f32.
+        # Library rule: f32 matmuls/convs default to reduced precision on an
+        # accelerator (TF32 on a GPU); the anti-aliasing filter carries the
+        # alias-floor contract, so force full f32.
         precision=jax.lax.Precision.HIGHEST,
     )
     return out[:, 0, :n_out]
@@ -162,9 +162,9 @@ def resample_rational(records, up: int, down: int, *,
 
     The polyphase form (`scipy.signal.resample_poly` semantics: output
     sample ``n`` is the band-limited signal at ``t = n * down / (up * fs)``,
-    length ``ceil(T * up / down)``), run as ONE dilated strided MXU
+    length ``ceil(T * up / down)``), run as ONE dilated strided
     convolution — ``lhs_dilation=up`` zero-stuffs the input inside the conv,
-    so no up-sampled intermediate is ever materialized in HBM.  Covers the
+    so no up-sampled intermediate is ever materialized in device memory.  Covers the
     non-dyadic rate pairs :func:`decimate` cannot (e.g. 100 → 62.5 Hz via
     ``up=5, down=8``); for ``up == 1`` prefer :func:`decimate` (identical
     result, cheaper taps).
@@ -211,7 +211,7 @@ def decimate(records, q: int, *, ntaps_per_phase: int = 12,
     stay time-aligned with native slow channels sampled at the same
     instants.  ``q=1`` is the identity (no filtering).
 
-    One strided MXU convolution per call; returns float64 numpy (host
+    One strided convolution per call; returns float64 numpy (host
     boundary, like the other host-facing analysis helpers).
     """
     q = int(q)

@@ -5,7 +5,7 @@ sin(wd * t + phi).  The spectral half-power width the detectors use (and
 the reference uses, ``get_peak_prominence.py:89-112``) is the right tool
 for operational (forced/ambient) response; for free decay the textbook
 estimator is the logarithmic decrement - fit the log of the decay
-envelope.  This module implements it TPU-style: band-select around the
+envelope.  This module implements it batched on device: band-select around the
 modal line in the frequency domain, analytic signal via the half-spectrum
 trick (Hilbert), linear least squares on the log envelope.  One jitted
 program, vmappable over transients.

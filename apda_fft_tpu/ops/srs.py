@@ -8,7 +8,7 @@ response.  The reference uploads 0xC1 shock records raw and never
 analyzes them (``GT_FFT_v5.py:514-554``); this module adds the analysis
 the downstream engineer would otherwise run by hand.
 
-TPU-first design: the SDOF bank uses the ISO 18431-4 ramp-invariant
+Design: the SDOF bank uses the ISO 18431-4 ramp-invariant
 (Smallwood) digital filter, whose second-order recurrence is evaluated as
 a *parallel* first-order affine recurrence with
 ``jax.lax.associative_scan`` - log2(T) elementwise passes over a

@@ -83,13 +83,11 @@ def median_lastaxis(
     acquisition windows are handled (the reference computes the median of the
     *unpadded* sample list before zero-padding, ``metrics/fft_iterativa.py:74-79``).
 
-    ``method``: "auto"/"sort" (XLA sort - the measured winner) or "select"
-    (radix order-statistic selection via 32 masked count passes, float32
-    only).  Selection is value-identical (randomized cross-check in
-    tests/test_stats_median.py) but measured SLOWER on TPU v5e - 9.60 ms
-    vs 7.82 ms sort at [4088, 4096] (0.81x): the 32 sequential count
-    rounds can't beat XLA's heavily tuned vectorized sort.  Kept as a
-    tested cross-check per this repo's measured-negative-result practice.
+    ``method``: "auto"/"sort" (XLA sort) or "select" (radix order-statistic
+    selection via 32 masked count passes, float32 only).  Selection is
+    value-identical (randomized cross-check in tests/test_stats_median.py)
+    but was slower than the sort on the earlier chip (not measured on the
+    GPU); kept as a tested cross-check.
     """
     n = x.shape[-1]
     if method not in ("auto", "sort", "select"):

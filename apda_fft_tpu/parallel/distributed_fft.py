@@ -1,10 +1,10 @@
 """Sequence-parallel FFT: one record's transform sharded over a mesh axis.
 
 The reference handles its longest records (N = 64 Ki, BASELINE config 5) with
-one in-place O(N log N) loop on a single core; a TPU core's VMEM holds such a
-record trivially, so single-chip batching needs no sequence split (SURVEY.md
+one in-place O(N log N) loop on a single core; one device holds such a
+record trivially, so single-device batching needs no sequence split (SURVEY.md
 section 5).  This module exists for the regime beyond that - records larger
-than one core's memory, or latency-critical single records - and as the
+than one device's memory, or latency-critical single records - and as the
 framework's "sp" axis: the four-step FFT distributes naturally with two
 all-to-alls (the distributed-transpose formulation):
 
@@ -14,8 +14,8 @@ all-to-alls (the distributed-transpose formulation):
       -> local N2-point DFT (matmul)
     all_gather k1 chunks -> full half-spectrum magnitudes per window
 
-Collectives ride ICI; compute is the same two MXU matmuls as the single-chip
-kernel.
+The all-to-alls run over the device interconnect (NVLink between GPUs);
+compute is the same two DFT matmuls as the single-device four-step.
 """
 
 from __future__ import annotations
@@ -70,9 +70,9 @@ def distributed_halfspec_magnitudes(
         # Distributed transpose #1: m1-sharded -> m2-sharded.
         a = jax.lax.all_to_all(a, seq_axis, split_axis=2, concat_axis=1, tiled=True)
         # Local N1-point DFT over full m1 (real input: two matmuls).
-        # precision=HIGHEST on every DFT matmul: TPU default is bf16 inputs,
-        # which costs ~3e-3 relative spectrum error vs the ~1e-6 contract
-        # (docs/DESIGN.md); CPU-mesh tests cannot catch the omission.
+        # precision=HIGHEST on every DFT matmul: the default f32 matmul of an
+        # accelerator is reduced precision (TF32 on a GPU), far outside the
+        # 1e-6 contract; CPU-mesh tests cannot catch the omission.
         hp = jax.lax.Precision.HIGHEST
         br = jnp.einsum("kn,bnm->bkm", c1, a, preferred_element_type=jnp.float32,
                         precision=hp)

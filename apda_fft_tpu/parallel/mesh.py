@@ -2,8 +2,8 @@
 
 The reference achieves multi-sensor concurrency by TDMA-staggering radio
 transmissions (+2 s per device, ``GT_FFT_v5.py:567-575``) into one sequential
-loop.  The TPU-native equivalent: the window batch axis of an epoch is sharded
-over a ``jax.sharding.Mesh`` ("data" axis, ICI within a slice), and the core
+loop.  The batched equivalent: the window batch axis of an epoch is sharded
+over a ``jax.sharding.Mesh`` ("data" axis), and the core
 pipeline - embarrassingly parallel across windows - runs with zero collectives;
 results gather only at host collection.  Long records can additionally shard
 the FFT itself over a "seq" axis (see ``parallel/distributed_fft.py``).
@@ -54,7 +54,7 @@ def analyze_epoch_sharded(
     ``samples`` is ``[B, N]`` (or any leading batch shape whose first axis is
     divisible by the mesh axis size).  The jitted program runs SPMD across the
     mesh; XLA inserts no collectives in the core (verified in tests), so
-    scaling over ICI is linear in chips.
+    scaling is linear in devices.
     """
     if mesh is None:
         mesh = make_mesh()
@@ -181,7 +181,7 @@ def correlation_blocks_sharded(
     after a ``ppermute`` halo exchange of ``L-1`` samples from its right
     neighbour, and ONE ``psum`` of the tiny ``[L, S, S]`` partials
     combines them - communication is O(S*L + L*S^2) regardless of T, so
-    scaling over ICI is linear in chips.  The wraparound halo the last
+    scaling is linear in devices.  The wraparound halo the last
     shard receives is never read: its valid base positions stop ``L-1``
     short of its chunk end by the fixed-window mask.  T must be divisible
     by the axis size.  Feed the result to ``ssi(..., blocks=...)``.

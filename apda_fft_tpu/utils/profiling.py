@@ -63,8 +63,6 @@ def compiled_stats(fn, *args, **kwargs) -> dict:
     """Compile ``fn`` and report XLA's cost analysis (FLOPs, bytes accessed)."""
     compiled = jax.jit(fn).lower(*args, **kwargs).compile()
     analysis = compiled.cost_analysis()
-    if isinstance(analysis, list):  # older jax returns [dict]
-        analysis = analysis[0] if analysis else {}
     return {
         "flops": analysis.get("flops", -1.0),
         "bytes_accessed": analysis.get("bytes accessed", -1.0),

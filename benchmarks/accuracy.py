@@ -5,8 +5,7 @@ vs numpy.fft" (derived from the reference core's float64 accuracy,
 ``/root/reference/metrics/fft_iterativa.py:38-70``, measured 8.6e-13 at
 N=65536 in f64).  This harness measures the shipped f32 backends against the
 float64 numpy oracle at every BASELINE N (1024..65536) on whatever device JAX
-finds (TPU in production, CPU in CI) and writes the table as JSON, so the
-contract is carried by a committed artifact instead of prose.
+finds and prints (or writes) the table as JSON.
 
 Metrics per (N, signal kind, backend):
 
@@ -17,7 +16,7 @@ Metrics per (N, signal kind, backend):
   not part of the <=1e-6 gate (noise-floor bins have no meaningful relative
   scale).
 
-Usage: python benchmarks/accuracy_tpu.py [out.json]
+Usage: python benchmarks/accuracy.py [out.json]
 Exit code 1 if any normwise entry exceeds 1e-6.
 """
 
@@ -108,13 +107,14 @@ def measure(seed: int = 42) -> list[dict]:
 
 
 def main(argv) -> int:
-    # Accept both `accuracy_tpu.py PATH` and `accuracy_tpu.py --out PATH`
-    # (the other benchmark entry points use --out; a literal "--out" file
-    # in the repo root is how we learned positional-only was a trap).
+    # Accept both `accuracy.py PATH` and `accuracy.py --out PATH` (the other
+    # benchmark entry points use --out).
     args = [a for a in argv[1:] if a != "--out"]
     out_path = args[0] if args else None
-    dev = jax.devices()[0]
-    print(f"# device: {dev.device_kind} ({dev.platform})")
+    from apda_fft_tpu.utils.benchtime import device_info
+
+    dev = device_info()
+    print(f"# device: {dev}")
     rows = measure()
     worst = max(
         max(r["fourstep_full_normwise"], r["packed_rfft_normwise"],
@@ -126,7 +126,7 @@ def main(argv) -> int:
         "contract": CONTRACT,
         "worst_normwise": worst,
         "ok": ok,
-        "device": f"{dev.device_kind} ({dev.platform})",
+        "device": dev,
         "rows": rows,
     }
     if out_path:

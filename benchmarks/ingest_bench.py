@@ -1,7 +1,7 @@
 """Host-side gateway ingest throughput (the fused native codec path).
 
 Streams a full multi-sensor acquisition epoch through the simulator +
-loopback transport + gateway state machine with the TPU analysis stage
+loopback transport + gateway state machine with the device analysis stage
 stubbed, isolating the host packet path: dispatch, sequence validation,
 fused native decode+format+append (csrc/apda_io.cc), history logging.
 One JSON line; gate = native library available AND >= MIN_SAMPLES_PER_SEC

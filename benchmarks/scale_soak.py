@@ -1,6 +1,6 @@
 """256-sensor scale soak: roster-LRU eviction churn + async uploads under load.
 
-VERDICT r4 item 6: the committed soaks used 8-16 sensors - far below the
+Smaller soaks (8-16 sensors) stay far below the
 64-key modal/SSI tracker-roster LRU cap, with the async uploader idle.
 This drives the full-features gateway at 256 sensors (3 axes x 2 ODRs,
 15% per-epoch delivery churn, the endurance fault mix) so:
@@ -21,7 +21,7 @@ Reference contract this scales past: per-sensor dict isolation
 
 Usage:
     python benchmarks/scale_soak.py [--sensors 256] [--epochs 20] \
-        [--out SCALE_r05.json]
+        [--out result.json] [--platform cpu]
 """
 
 from __future__ import annotations
@@ -69,21 +69,18 @@ def main() -> None:
     ap.add_argument("--epochs", type=int, default=20)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--out", default="")
-    # Host-side soak: pin local CPU (see benchmarks/endurance.py main).
-    ap.add_argument("--platform", default="cpu",
-                    help="jax platform ('default' = leave untouched)")
+    ap.add_argument("--platform", default="",
+                    help="jax platform to pin (e.g. 'cpu'); default: the "
+                         "device JAX finds")
     args = ap.parse_args()
-    if args.platform != "default":
-        import jax
+    import jax
 
+    if args.platform:
         jax.config.update("jax_platforms", args.platform)
-    # Provenance FIRST: attest the measured SHA, refuse dirt before the
-    # soak spends its wall-time (see benchmarks/endurance.py main).
-    from benchmarks.evidence import provenance
+    from apda_fft_tpu.utils.benchtime import device_info
 
-    prov = provenance()
     result = run_scale(args.sensors, args.epochs, args.seed)
-    result.update(prov)
+    result["device"] = device_info()
     if args.out:
         with open(args.out, "w") as fh:
             json.dump(result, fh, indent=1)

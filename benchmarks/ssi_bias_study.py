@@ -1,4 +1,4 @@
-"""50-seed SSI damping-bias fit per (zeta, f0, T) cell (VERDICT r4 item 7).
+"""50-seed SSI damping-bias fit per (zeta, f0, T) cell.
 
 The round-4 damping fidelity study (docs/DESIGN.md) established that
 single-record SSI damping error is variance-bound at the output-only
@@ -87,12 +87,6 @@ def main() -> None:
     ap.add_argument("--t", default="120,240")
     ap.add_argument("--out", default="")
     args = ap.parse_args()
-    try:
-        from benchmarks.evidence import provenance
-
-        prov = provenance()
-    except SystemExit:
-        prov = {"git_dirty": True}
     cells = []
     for zeta in (float(z) for z in args.zetas.split(",")):
         for t_sec in (float(t) for t in args.t.split(",")):
@@ -100,7 +94,7 @@ def main() -> None:
             cells.append(cell)
             print(f"# {json.dumps(cell)}", file=sys.stderr, flush=True)
     result = {"metric": "ssi_damping_bias_fit", "i_rows": I_ROWS,
-              "fs": FS, "freqs": TRUE_FREQS, "cells": cells, **prov}
+              "fs": FS, "freqs": TRUE_FREQS, "cells": cells}
     if args.out:
         with open(args.out, "w") as fh:
             json.dump(result, fh, indent=1)

@@ -7,7 +7,7 @@ count, frequency within 0.2%, damping within 5% relative, shape MAC >
 0.999) AND every planted mode is recovered within 1% frequency.
 
 Usage: python benchmarks/ssi_fuzz.py [n_cases]    (exit 0 iff all pass)
-Also callable as run_ssi_fuzz(n) from benchmarks/evidence.py.
+Also callable as run_ssi_fuzz(n).
 """
 
 from __future__ import annotations

@@ -2,7 +2,7 @@
 
 The simulator speaks the reference wire protocol (0xA1 sync, 0xD1-0xD3
 streams, fault injection) through the same GatewayService that drives real
-XBee hardware; completed acquisitions flow through the TPU pipeline and
+XBee hardware; completed acquisitions flow through the epoch pipeline and
 the history log shows the decoded telemetry + detected peaks.
 
 Run: python examples/gateway_simulation.py

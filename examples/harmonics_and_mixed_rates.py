@@ -10,7 +10,7 @@ Two pitfalls every deployed monitoring array hits sooner or later:
 2. **Mixed output data rates.**  A deck node at 250 Hz next to a pylon
    node at 125 Hz: cross-sensor analysis needs one time base, so the
    faster channel is anti-alias decimated onto the slower rate
-   (`ops/resample.py` - one strided MXU convolution, scipy-exact grid).
+   (`ops/resample.py` - one strided convolution, scipy-exact grid).
 
 Run: python examples/harmonics_and_mixed_rates.py
 """

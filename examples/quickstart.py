@@ -36,8 +36,7 @@ def main() -> None:
     print(f"all {per_window.size} windows found peaks: "
           f"min {per_window.min()}, max {per_window.max()} per window")
 
-    # Single windows on a real TPU route through the fused latency kernel
-    # automatically (analyze_epoch(lowlat="auto") is the default).
+    # A single window runs the same batched program at B=1.
     one = apda.analyze_epoch(samples[0, 0][None], fs)
     print(f"single-window: {int(one.count[0])} peaks, "
           f"top {float(one.freq[0][0]):.4f} Hz")

@@ -46,9 +46,9 @@ def test_fullspec_accuracy_f32(n, backend):
     """BASELINE.md contract: spectra <=1e-6 relative error vs numpy.fft.
 
     Gated at the contract bound itself (normwise L2, the standard relative-
-    error reading).  Measured on TPU v5e the four-step stays ~1e-7 at every
-    N up to 65536 (f64-computed tables keep the error flat in log N); the
-    committed per-N table is ACCURACY_r03.json / benchmarks/accuracy_tpu.py.
+    error reading); f64-computed tables keep the error flat in log N.  The
+    per-N table on the device is ``benchmarks/accuracy.py``, and
+    ``chip_smoke.py`` gates it on the GPU.
     """
     x = modal_signal(n, 500.0, seed=n % 7)
     spec = fft_ops.full_spectrum(jnp.asarray(x[None, :], jnp.float32), backend=backend)
@@ -58,7 +58,7 @@ def test_fullspec_accuracy_f32(n, backend):
     assert err < 1e-6, f"normwise relative error {err} at N={n} backend={backend}"
     # Secondary: normalized max-abs (peak-scale worst bin).  Wider than the
     # contract bound because single-bin error is accumulation-order dependent
-    # (CPU einsum hits 4.3e-6 at N=65536 where TPU HIGHEST stays ~5e-7).
+    # (CPU einsum hits 4.3e-6 at N=65536).
     err_max = np.max(np.abs(np.asarray(spec[0]) - ref)) / np.max(np.abs(ref))
     assert err_max < 5e-6, f"peak-normalized max error {err_max} at N={n}"
 
@@ -77,9 +77,9 @@ def test_fullspec_exact_f64(n):
 def test_rfft_packed_accuracy(n):
     """Packed (N/2-complex) rfft matches numpy float64 to f32 roundoff.
 
-    Kept as a tested cross-check: on TPU v5e it measured 0.83-0.97x the plain
-    half-output four-step at every size (docs/DESIGN.md), so the plain path
-    stays the shipped backend.
+    Kept as a tested cross-check: it measured slower than the plain
+    half-output four-step on the earlier chip (not measured on the GPU), so
+    the plain path stays the shipped backend.
     """
     rng = np.random.default_rng(n)
     x = rng.standard_normal((3, n)).astype(np.float32)

@@ -974,7 +974,7 @@ def test_sub7_byte_heartbeat_degrades(tmp_path):
 
 
 def test_epoch_batch_scale_32_sensors_mixed_buckets(tmp_path):
-    """VERDICT r3 item 6: the epoch-batch design's core claim at scale.
+    """The epoch-batch design's core claim at scale.
 
     32 sensors x 3 axes with mixed record lengths, flush_mode="on_sync":
     exactly ONE pipeline program runs per pow2 bucket, and every decision is
@@ -1045,8 +1045,7 @@ def test_epoch_batch_scale_32_sensors_mixed_buckets(tmp_path):
 
 def test_fault_soak_smoke():
     """The committed soak harness (benchmarks/soak.py) holds its invariants
-    on a small CPU run; the full-size run is exercised on hardware per round
-    (docs/ROUND3.md)."""
+    on a small CPU run."""
     from benchmarks.soak import run_soak
 
     result = run_soak(n_sensors=4, epochs=2, seed=1)

@@ -1,6 +1,6 @@
 """Driver entry-point contract: entry() compiles, dryrun self-bootstraps.
 
-The round-1 failure mode (MULTICHIP_r01.json ok:false) was dryrun_multichip
+The round-1 failure mode was dryrun_multichip
 assuming the virtual multi-device platform already existed.  These tests pin
 both paths: inline (enough devices visible, as under pytest's 8-device
 conftest) and subprocess bootstrap (more devices requested than visible,

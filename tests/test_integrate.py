@@ -4,7 +4,7 @@ Tolerances are set from a float64 numpy oracle sweep over worst-case
 half-bin off-grid tones (see ops/integrate.py module docstring): with
 the default taper + soft high-pass, amplitude error is <= 0.08% for
 tones >= 2.5x f_highpass; the tolerances below carry ~3-5x margin on
-top of that for the float32 TPU path.
+top of that for the float32 device path.
 """
 
 import numpy as np

@@ -1,4 +1,4 @@
-"""Pallas kernel equivalence (interpret mode) and sharded/distributed paths."""
+"""FFT backend and detector equivalence, and the sharded/distributed paths."""
 
 import numpy as np
 import jax
@@ -6,7 +6,6 @@ import jax.numpy as jnp
 import pytest
 
 from apda_fft_tpu.ops import fft as fft_ops
-from apda_fft_tpu.ops.fft_pallas import halfspec_magnitudes_pallas
 from apda_fft_tpu.parallel.distributed_fft import (
     distributed_halfspec_magnitudes,
     shard_windows_2d,
@@ -21,22 +20,24 @@ def _windows(b, n, fs=500.0, seed=0):
 
 
 @pytest.mark.parametrize("n", [256, 1024, 4096])
-def test_pallas_kernel_matches_xla(n):
+def test_matmul_backend_matches_xla(n):
+    """The four-step matmul magnitudes (direct DFT at n=256) equal XLA's FFT."""
     w = fft_ops.center_and_pad(_windows(5, n), n)
     ref = np.asarray(fft_ops.halfspec_magnitudes(w, backend="xla"))
-    got = np.asarray(halfspec_magnitudes_pallas(w, block_windows=4))
+    got = np.asarray(fft_ops.halfspec_magnitudes(w, backend="matmul"))
     assert got.shape == ref.shape
     scale = ref.max()
     np.testing.assert_allclose(got / scale, ref / scale, atol=3e-6)
     assert np.all(got[:, 0] == 0)
 
 
-def test_pallas_kernel_batch_padding():
-    """Batch not divisible by block size still yields exact rows."""
-    w = fft_ops.center_and_pad(_windows(3, 256), 256)
-    got = np.asarray(halfspec_magnitudes_pallas(w, block_windows=8))
-    ref = np.asarray(fft_ops.halfspec_magnitudes(w, backend="xla"))
-    np.testing.assert_allclose(got / ref.max(), ref / ref.max(), atol=3e-6)
+def test_matmul_backend_rows_are_independent():
+    """An odd batch yields the same rows as each window transformed alone."""
+    w = fft_ops.center_and_pad(_windows(3, 1024), 1024)
+    got = np.asarray(fft_ops.halfspec_magnitudes(w, backend="matmul"))
+    for i in range(3):
+        one = np.asarray(fft_ops.halfspec_magnitudes(w[i:i + 1], backend="matmul"))
+        np.testing.assert_allclose(got[i], one[0], rtol=1e-6, atol=1e-6 * got.max())
 
 
 def test_sharded_epoch_analysis_8dev():
@@ -98,21 +99,23 @@ def test_distributed_fft_rejects_bad_split():
         distributed_halfspec_magnitudes(shard_windows_2d(xs2, mesh), mesh)
 
 
-def test_pallas_detector_matches_xla_path():
-    """Pallas prominence scans == vmapped XLA detector on the signal corpus."""
-    from apda_fft_tpu.ops.detector_pallas import prominence_peaks_batch_pallas
+def test_detector_selection_paths_agree():
+    """argmax, top_k and sort candidate selection decide identically on the
+    signal corpus (the auto choice between them is a speed choice only)."""
     from apda_fft_tpu.ops.peaks_prominence import prominence_peaks
 
     for n, fs in ((1024, 500.0), (4096, 250.0)):
         xs = _windows(6, n, fs=fs, seed=50)
         mags = fft_ops.halfspec_magnitudes(fft_ops.center_and_pad(xs, n))
         fsv = jnp.full((6,), fs, jnp.float32)
-        got = prominence_peaks_batch_pallas(mags, fsv, n)
-        ref = jax.vmap(lambda m, f: prominence_peaks(m, f, n))(mags, fsv)
-        np.testing.assert_array_equal(np.asarray(got.count), np.asarray(ref.count))
-        np.testing.assert_array_equal(np.asarray(got.idx), np.asarray(ref.idx))
-        np.testing.assert_array_equal(np.asarray(got.prominence), np.asarray(ref.prominence))
-        np.testing.assert_array_equal(np.asarray(got.damping), np.asarray(ref.damping))
+        ref = jax.vmap(lambda m, f: prominence_peaks(m, f, n, selection="argmax"))(mags, fsv)
+        for sel in ("topk", "sort"):
+            got = jax.vmap(lambda m, f: prominence_peaks(m, f, n, selection=sel))(mags, fsv)
+            np.testing.assert_array_equal(np.asarray(got.count), np.asarray(ref.count))
+            np.testing.assert_array_equal(np.asarray(got.idx), np.asarray(ref.idx))
+            np.testing.assert_array_equal(
+                np.asarray(got.prominence), np.asarray(ref.prominence))
+            np.testing.assert_array_equal(np.asarray(got.damping), np.asarray(ref.damping))
 
 
 def test_distributed_fft_long_record():
@@ -194,7 +197,7 @@ def test_sharded_multidim_batch_with_padding():
 def test_sharded_ragged_lengths_match_single_device():
     """Ragged records (lengths-bearing) on a mesh: uneven batch AND uneven
     per-record valid prefixes must pad, shard, and decide exactly like the
-    single-device pipeline (VERDICT r1 item 8)."""
+    single-device pipeline."""
     from apda_fft_tpu.models.pipeline import analyze_epoch
 
     mesh = make_mesh(8, ("data",))
@@ -259,7 +262,7 @@ def _noisy_corpus(b, n, fs=500.0, seed=1234, noise=1.0):
 
 def test_sharded_welch_matches_single_device():
     """Welch-averaged analysis on a mesh: channel axis sharded (uneven),
-    decisions identical to the single-device run (VERDICT r3 item 3)."""
+    decisions identical to the single-device run."""
     from apda_fft_tpu.models.streaming import analyze_welch
     from apda_fft_tpu.parallel.mesh import analyze_welch_sharded
 
@@ -358,31 +361,33 @@ def test_dynamic_two_tier_budget_on_mesh():
     assert (n, "flexible") in pipeline._dynamic_budget
 
 
-def test_fused_detector_routing_excludes_spmd(monkeypatch):
-    """The fused Pallas detector must never route on mesh paths:
-    pallas_call has no SPMD partitioning rule, so `auto_spmd` selection
-    (what every sharded entry point pins) bypasses it even on TPU with the
-    env knob on (models/pipeline.py routing contract)."""
-    from apda_fft_tpu.models import pipeline
-
-    monkeypatch.setenv("APDA_FUSED_DETECTOR", "1")
-    monkeypatch.setattr(jax, "default_backend", lambda: "tpu")
-    # All other gates open: lane-aligned H, budget past the crossover.
-    assert pipeline._route_fused_detector(2048, 32, "sort") is True
-    assert pipeline._route_fused_detector(2048, 32, "auto_spmd") is False
-    # And the sharded entry points do pin auto_spmd by default (the kwargs
-    # contract the routing exclusion depends on).
+def test_sharded_entry_points_pin_partitionable_selection():
+    """Mesh paths must lower without lax.top_k, which has no SPMD
+    partitioning rule: every sharded entry point pins `auto_spmd`, which
+    resolves to argmax or the full sort, never top_k."""
     import inspect
 
+    from apda_fft_tpu.models.pipeline import _analyze_epoch_impl
     from apda_fft_tpu.parallel import mesh as mesh_mod
 
     for fn in (mesh_mod.analyze_epoch_sharded, mesh_mod.analyze_welch_sharded):
         src = inspect.getsource(fn)
         assert 'setdefault("selection", "auto_spmd")' in src, fn.__name__
+    xs = _windows(4, 1024)
+    fs = jnp.full((4,), 500.0, jnp.float32)
+    for selection, has_topk in (("auto_spmd", False), ("auto", True)):
+        hlo = jax.jit(
+            lambda s, f: _analyze_epoch_impl(
+                s, f, None, n_fft=1024, mode="flexible", k=4, backend="matmul",
+                max_candidates=32, refine=False, has_lengths=False,
+                selection=selection,
+            )
+        ).lower(xs, fs).as_text()
+        assert ("top_k" in hlo) == has_topk, selection
 
 
 def test_flagship_refined_dynamic_on_dpxsp_mesh():
-    """VERDICT r4 item 3: the sequence-parallel FFT feeding the REFINED,
+    """The sequence-parallel FFT feeding the REFINED,
     DYNAMIC-BUDGET detector (the program BASELINE cfg2/cfg5 describe) -
     full-decision parity + sub-bin refined frequencies vs the single-device
     flagship, on the 2D dp x sp mesh."""
@@ -445,7 +450,7 @@ def test_detect_from_mags_static_and_validation():
 
 
 def test_sharded_severity_srs_ringdown_parity():
-    """VERDICT r4 item 4: severity / SRS / ring-down under NamedSharding on
+    """Severity / SRS / ring-down under NamedSharding on
     the dp mesh - kwargs + collective-free readback contracts, parity vs the
     unsharded op."""
     from jax.sharding import NamedSharding, PartitionSpec as P

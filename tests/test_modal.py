@@ -195,13 +195,10 @@ def test_fdd_single_sensor_reduces_to_psd_peaks():
 def test_fdd_fuzz_vs_eigh_oracle():
     """Randomized realistic CSDs: power-iteration triplets == float64 eigh.
 
-    The same harness ran 30 cases on TPU v5e hardware (S in 2..6, 1-3
-    modes, fs in {100..500}, window in {512, 1024}): 30/30 eigh-exact
-    (worst rel 2.9e-7, worst dominant-vector MAC 0.99999997); the only
-    non-oracle deviations were two weak third modes below the detector's
-    reference mean+2*std threshold, which the eigh oracle's detection
-    misses identically (docs/DESIGN.md).  This keeps a 6-case version in
-    the committed suite.
+    A 6-case version of the on-device FDD fuzz (S in 2..6, 1-3 modes); the
+    only expected non-oracle deviations are weak modes below the
+    detector's reference mean+2*std threshold, which the eigh oracle's
+    detection misses identically.
     """
     from apda_fft_tpu.models.modal import csd_matrix, fdd, sv_spectra
 

@@ -1,5 +1,7 @@
 """Native (C++) data-loader kernels: build, parity vs Python, throughput sanity."""
 
+import os
+
 import numpy as np
 import pytest
 
@@ -224,3 +226,46 @@ def test_fd_append_write_failure_raises(tmp_path):
             native.append_half_payload_quantized_fd(fd, raw, 0.0)
     finally:
         os.close(fd)
+
+
+@pytest.fixture
+def fresh_build(tmp_path, monkeypatch):
+    """A private copy of the source and an empty build dir; no lib loaded."""
+    src = tmp_path / "apda_io.cc"
+    src.write_bytes(open(native._SRC, "rb").read())
+    build = tmp_path / "build"
+    monkeypatch.setattr(native, "_SRC", str(src))
+    monkeypatch.setattr(native, "_BUILD_DIR", str(build))
+    monkeypatch.setattr(native, "_lib", None)
+    monkeypatch.setattr(native, "_load_failed", False)
+    monkeypatch.delenv("APDA_NO_NATIVE", raising=False)
+    return src, build
+
+
+def test_library_name_is_keyed_on_the_source_hash(fresh_build):
+    src, build = fresh_build
+    first = native._lib_path()
+    assert os.path.dirname(first) == str(build)
+    assert first == native._lib_path()  # deterministic
+    src.write_bytes(src.read_bytes() + b"\n// changed\n")
+    assert native._lib_path() != first
+
+
+def test_stale_build_is_never_loaded(fresh_build):
+    """A library from other source - even one with a newer mtime, as a
+    copied build dir has - is ignored; the current source is built."""
+    src, build = fresh_build
+    build.mkdir()
+    for stale in ("libapda_io.so", "libapda_io-0000000000000000.so"):
+        (build / stale).write_bytes(b"not a shared object")
+    lib = native.load()
+    assert lib is not None
+    assert os.path.exists(native._lib_path())
+    got = native.decode_payload(b"\x3c\x00", 0.0)
+    assert list(got) == list(halffloat.decode_payload(b"\x3c\x00", 0.0))
+
+
+def test_missing_source_falls_back_to_numpy(fresh_build, monkeypatch):
+    src, _ = fresh_build
+    monkeypatch.setattr(native, "_SRC", str(src) + ".absent")
+    assert native.load() is None and not native.available()

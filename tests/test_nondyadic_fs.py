@@ -1,4 +1,4 @@
-"""Non-dyadic sampling-rate exactness for the rigid detector (VERDICT r2 #5).
+"""Non-dyadic sampling-rate exactness for the rigid detector.
 
 The reference's exclusion wipe is ``round((idx*df)*0.02/df)`` in float64
 (``get_peak_resolution.py:105,116-117``).  For dyadic hardware rates the

@@ -38,11 +38,7 @@ def _run_device(x, fs, mode, dtype):
     n = len(x)
     n_fft = 1 << (n - 1).bit_length()
     if n == n_fft:
-        # lowlat="never": this helper (and the parity gate built on it) must
-        # exercise the BATCHED pipeline; on a TPU the default would route
-        # single full windows to the fused latency kernel, which has its own
-        # parity section in benchmarks/parity_tpu.py.
-        res = analyze_epoch(x[None, :], fs, mode=mode, dtype=dtype, lowlat="never")
+        res = analyze_epoch(x[None, :], fs, mode=mode, dtype=dtype)
     else:
         padded = np.zeros(n_fft)
         padded[:n] = x
@@ -166,7 +162,7 @@ def test_scan_impls_agree_exhaustively():
 
 
 def test_noisy_long_windows_exceed_static_budget():
-    """Seeds that overflow a fixed 32-candidate budget (found on TPU hardware):
+    """Seeds that overflow a fixed 32-candidate budget (found on the device):
     the auto-scaled budget keeps decisions exact."""
     from apda_fft_tpu.models.pipeline import default_max_candidates
 
@@ -184,9 +180,9 @@ def test_noisy_long_windows_exceed_static_budget():
 
 
 @pytest.mark.slow
-@pytest.mark.parametrize("backend", ["xla", "pallas"])
+@pytest.mark.parametrize("backend", ["xla"])
 def test_alternate_backends_decision_parity(backend):
-    """The non-default FFT backends must produce the same peak decisions as
+    """The non-default FFT backend must produce the same peak decisions as
     the float64 oracle on representative corpus cases (the parity gate runs
     the matmul default; spectra-level accuracy alone doesn't pin decisions)."""
     for n, fs, seed in [(1024, 500.0, 0), (4096, 500.0, 3), (2048, 62.5, 6)]:
@@ -211,7 +207,7 @@ def test_n_required_is_the_smallest_exact_budget():
             + 0.3 * rng.standard_normal(n)
         ).astype(np.float32)
         full = analyze_epoch(x[None], fs, mode="flexible",
-                             max_candidates=n // 2, lowlat="never")
+                             max_candidates=n // 2)
         nreq = int(full.n_required[0])
         ncand = int(full.n_candidates[0])
         assert 1 <= nreq <= ncand
@@ -219,13 +215,13 @@ def test_n_required_is_the_smallest_exact_budget():
         want = [p["idx"] for p in ref]
         for budget in (nreq, nreq + 3):
             res = analyze_epoch(x[None], fs, mode="flexible",
-                                max_candidates=budget, lowlat="never")
+                                max_candidates=budget)
             got = [int(i) for i in np.asarray(res.idx[0])[: int(res.count[0])]]
             assert got == want, (seed, budget)
             assert int(res.n_required[0]) == nreq
         if nreq > 1:
             trunc = analyze_epoch(x[None], fs, mode="flexible",
-                                  max_candidates=nreq - 1, lowlat="never")
+                                  max_candidates=nreq - 1)
             assert int(trunc.n_required[0]) > nreq - 1
 
 
@@ -287,7 +283,7 @@ def test_adaptive_decisions_match_composed_oracle():
         ref = oracle_analyze(x, fs, mode="adaptive")
         flex_ref = oracle_analyze(x, fs, mode="flexible")
         fell_back += 0 if flex_ref else 1
-        res = analyze_epoch(x[None, :], fs, mode="adaptive", lowlat="never")
+        res = analyze_epoch(x[None, :], fs, mode="adaptive")
         got = [int(i) for i in np.asarray(res.idx[0])[: int(res.count[0])]]
         assert got == [p["idx"] for p in ref]
     assert fell_back >= 1, "corpus no longer exercises the fallback branch"

@@ -348,7 +348,7 @@ def test_zero_rounded_magnitude_shoulder_rejected_not_inf():
 
 
 def test_fast_precision_knob():
-    """Opt-in bf16 spectrum mode (VERDICT r2 item 8): plumbing + validation."""
+    """Opt-in reduced-precision spectrum mode: plumbing + validation."""
     import numpy as np
     import pytest
 
@@ -358,9 +358,9 @@ def test_fast_precision_knob():
     x = two_mode_signal(1024, 500.0)[None, :]
     base = analyze_epoch(x, 500.0, mode="flexible")
     fast = analyze_epoch(x, 500.0, mode="flexible", precision="fast")
-    # On CPU HIGH == HIGHEST (no bf16 pass), so decisions match exactly; on
-    # TPU "fast" carries a documented 1.8e-5 spectrum error bound and strong
-    # peaks still match (hardware-measured, docs/DESIGN.md round 3).
+    # On CPU HIGH == HIGHEST, so decisions match exactly; on a GPU "fast"
+    # runs TF32 matmuls (its measured spectrum error is in PERF.md) and
+    # strong peaks still match.
     assert int(fast.count[0]) == int(base.count[0])
     assert int(fast.idx[0, 0]) == int(base.idx[0, 0])
 

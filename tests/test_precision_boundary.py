@@ -1,12 +1,12 @@
 """The damping==MIN_DAMPING decision boundary, now EXACT (docs/DESIGN.md).
 
 ``tests/data/noise_damping_boundary_8192.npy`` is a pure-noise window
-(found by randomized hardware fuzz, 2026-08-16) whose third-ranked peak has
+(found by randomized on-device fuzz, 2026-08-16) whose third-ranked peak has
 damping ``bins/(2*idx) = 2/2000`` - exactly ON the MIN_DAMPING=0.1% filter
 edge.  In round 2 the f32 filter compared ``1/(2*q) >= f32(0.001)``, whose
-landing depended on platform reduction order: the TPU pipeline rejected the
-peak while CPU f32 and the float64 oracle accepted it - the one carried
-fuzz miss (449/450).
+landing depended on platform reduction order: the accelerator pipeline
+rejected the peak while CPU f32 and the float64 oracle accepted it - the
+one carried fuzz miss (449/450).
 
 Round 3 removed the flip at its root: damping's acceptance band is now the
 EXACT integer comparison ``500*bins >= idx`` / ``50*bins <= 7*idx`` (the
@@ -17,8 +17,8 @@ now pins:
 
 1. the f32 decisions equal the float64 oracle on the boundary window - on
    every platform, no characterized landing pair anymore;
-2. this window overflows the 64-slot lowlat kernel cap (135 candidates),
-   so production routing hands it to the batched path by contract;
+2. at a 64-slot budget the window's 135 candidates are truncated, yet its
+   greedy walk completes within the budget, so the decisions stay exact;
 3. float64 still matches the oracle (the divergence was precision, and is
    now closed, not re-characterized).
 """
@@ -41,7 +41,7 @@ def _idx(res):
 
 def test_f32_matches_oracle_on_boundary_window():
     x = np.load(FIXTURE)
-    batched = analyze_epoch(x[None], FS, mode="flexible", lowlat="never")
+    batched = analyze_epoch(x[None], FS, mode="flexible")
     assert _idx(batched) == ORACLE_DECISIONS
 
 
@@ -59,19 +59,16 @@ def test_boundary_peak_is_exactly_on_the_edge():
     assert _half_power_bins(mags, j, prom) == 2
 
 
-@pytest.mark.slow  # 64-slot unrolled interpret-mode kernel compile
-def test_window_completes_within_lowlat_cap_despite_candidate_overflow():
+def test_window_completes_within_budget_64_despite_candidate_overflow():
     # 135 pre-budget candidates, but the greedy walk reaches its 4th
     # acceptance after 21 magnitude-ordered slots: n_required=21 <= 64, so
-    # the kernel's decisions are exact and the routing keeps them (before
-    # the n_required criterion this window forced a batched re-run).
-    from apda_fft_tpu.ops.latency_pallas import analyze_window_lowlat
-
+    # the decisions at a 64-slot budget are exact and the dynamic budget
+    # keeps them without a re-run.
     x = np.load(FIXTURE)
-    lo = analyze_window_lowlat(x, FS, mode="flexible", max_candidates=64)
-    assert int(lo.n_candidates[0]) > 64  # 135: budget truncated the walk...
-    assert int(lo.n_required[0]) <= 64  # ...but the top-k was already decided
-    assert _idx(lo) == ORACLE_DECISIONS
+    res = analyze_epoch(x[None], FS, mode="flexible", max_candidates=64)
+    assert int(res.n_candidates[0]) > 64  # 135: budget truncated the walk...
+    assert int(res.n_required[0]) <= 64  # ...but the top-k was already decided
+    assert _idx(res) == ORACLE_DECISIONS
 
 
 @pytest.mark.slow
@@ -82,5 +79,5 @@ def test_f64_matches_oracle_on_boundary_window():
     ref = oracle_analyze(x, FS, mode="flexible")
     assert [p["idx"] for p in ref] == ORACLE_DECISIONS
     res = analyze_epoch(x[None].astype(np.float64), FS, mode="flexible",
-                        dtype=np.float64, lowlat="never")
+                        dtype=np.float64)
     assert _idx(res) == ORACLE_DECISIONS

@@ -675,7 +675,7 @@ def test_cli_ssi_harmonics(tmp_path, capsys):
 
 
 def test_damping_alert_requires_statistical_resolution():
-    """VERDICT r4 item 7: a nominal +rel damping rise that does NOT clear
+    """A nominal +rel damping rise that does NOT clear
     sem_z=2 combined standard errors stays silent (single-epoch SSI damping
     is variance-bound at ~15% CoV - docs/DESIGN.md); the same means with
     tight windows alert."""

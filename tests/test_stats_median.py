@@ -1,6 +1,6 @@
 """Radix-select median cross-check: value-identical to the sort path.
 
-(The selection path measured SLOWER on TPU - 0.81x at [4088, 4096] - and
+(The selection path measured slower than the sort on the earlier chip and
 is kept only as an independent implementation cross-checking the sort;
 see ops/stats.py.)
 """

@@ -11,8 +11,7 @@ program.  These tests pin the contract:
   loop's ``n_required <= budget`` exactness check can never pass by accident);
 * the dynamic loop learns / applies / abandons the split correctly end to end.
 
-Measured basis: flat M=32 503K w/s vs (12, 128) two-tier 926K w/s on the
-noisy corpus, TPU v5e (docs/DESIGN.md "Two-tier candidate budget").
+Design: docs/DESIGN.md "Two-tier candidate budget".
 """
 
 from __future__ import annotations

@@ -10,8 +10,8 @@ versus the f32 device path, over a fixed randomized corpus.
 Unlike the raw-mags detector fuzz (which feeds identical pre-quantized
 values to both sides), the f32 spectrum+average here genuinely differs
 from float64 at the ~1e-7 level, so exact agreement is an empirical
-claim about threshold margins - the same claim the hardware e2e fuzz
-makes for the epoch path (1000/1000, PARITY_r03.json).
+claim about threshold margins - the same claim the on-device e2e fuzz
+(``benchmarks/fuzz.py``) makes for the epoch path.
 """
 
 import numpy as np

@@ -1,4 +1,4 @@
-"""Gateway + CLI wiring of the Welch/streaming surface (VERDICT r2 item 3).
+"""Gateway + CLI wiring of the Welch/streaming surface.
 
 The library-level Welch tools (``models/streaming.py``) are covered by
 ``test_streaming.py``; these tests cover their *reachability*: the gateway's
